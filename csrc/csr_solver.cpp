@@ -1,7 +1,7 @@
 // General-CSR ILU(0) + GMRES(restart) host kernels for the DoF-ordering
 // parity mode (cell-RCM + finite-element fill pattern), the role PETSc's
 // C KSP/PC kernels play for the reference (pc_type=ilu with DMPlex
-// numbering, reference solvers/parameters.py:27). The production TPU path
+// numbering, reference solvers/parameters.py:27). The default device path
 // is the structured envelope ILU in perphil_tpu/ops/ilu.py; this kernel
 // exists so the ordering-faithful factorization — inherently sequential in
 // an unstructured row order — runs at native speed on the host.

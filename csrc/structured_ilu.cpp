@@ -3,8 +3,8 @@
 // Plays the role PETSc's C factorization kernels play for the reference
 // (PCSetUp for pc_type=ilu, reference solvers/parameters.py:27): the
 // factorization is inherently sequential in row order, so it runs on the
-// host; triangular solves and GS sweeps run on the TPU via wavefront
-// lax.scan (perphil_tpu/ops/ilu.py). This C++ path replaces the
+// host; triangular solves and GS sweeps run on the device via
+// parallel-prefix trees or wavefront lax.scan (perphil_tpu/ops/ilu.py). This C++ path replaces the
 // level-vectorized numpy fallback with a single IKJ sweep (natural order),
 // bit-identical results, ~an order of magnitude faster at large N.
 //

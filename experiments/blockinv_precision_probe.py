@@ -4,9 +4,8 @@ The on-device plan for the 3D ordering-parity GMRES+ILU rows (VERDICT r4
 item 1) restructures the sequential CSR trisolve as a block recurrence over
 the RCM band: per field and factor, the band is covered by ~n/B dense BxB
 blocks (B >= bandwidth+1), the diagonal blocks are INVERTED on the host, and
-the apply becomes one dense matvec per block — MXU work, no unstructured
-gathers (Mosaic has none; levelsched_eval measured the gather path at 17x
-slower). Inter-field couplings (L21, U12) stay sparse matvecs.
+the apply becomes one dense matvec per block, no unstructured gathers.
+Inter-field couplings (L21, U12) stay sparse matvecs.
 
 This probe answers the two questions that decide the device design:
 

@@ -20,8 +20,7 @@ on CPU, where true f64 provides the rounding oracle
   - coarse: round once per composite stage (matvec result, post-CGS w,
             normalized v, updated x) — fewer in-kernel rounding sites
 
-Scalars already run in f64 here (the in-kernel port must emulate them on
-the same grid — SMEM triples).
+Scalars already run in f64 here.
 
 Run: JAX_PLATFORMS=cpu python experiments/tf_grid_probe.py
 """

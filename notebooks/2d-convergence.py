@@ -1,7 +1,7 @@
 # %% [markdown]
 # # 2D h-convergence study — conforming DPP (two pressures)
 #
-# TPU-native reproduction of the reference study
+# JAX reproduction of the reference study
 # (`/root/reference/notebooks/2d-convergence.py`): sweep N = 4..128 over the
 # five solver approaches, compute L2/H1-seminorm errors against the
 # manufactured solution, fit observed convergence orders (EOC), and write
@@ -18,8 +18,8 @@ from pathlib import Path
 # This is a PARITY artifact generator: counts/errors must reproduce the
 # reference's CPU/PETSc CSVs digit-for-digit, so pin the exact-parity
 # arithmetic (CPU, native float64, f64 ILU application) regardless of
-# attached accelerators — the TPU production mode (double-float Krylov,
-# f32 ILU) legitimately differs by ±2 iterations at a few sizes.
+# attached accelerators — the default device mode (f32 ILU
+# application) legitimately differs by ±2 iterations at a few sizes.
 os.environ.setdefault("PERPHIL_TPU_ILU_DTYPE", "float64")
 import jax
 
@@ -162,7 +162,7 @@ print("wrote", OUT / "pressure_slices.png")
 # ## Beyond the reference: degree-p convergence (Qp tensor-product spaces)
 #
 # The reference accepts arbitrary degree through Firedrake but publishes
-# only degree-1 artifacts. The TPU rebuild's Kronecker-structured Qp path
+# only degree-1 artifacts. This rebuild's Kronecker-structured Qp path
 # (`ops/tensorfem`) delivers the expected higher orders; this writes
 # `convergence_qp.csv` documenting them.
 

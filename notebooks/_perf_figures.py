@@ -5,9 +5,9 @@ Reproduces every figure family of the reference notebooks
 `petsc-profiling-time-benchmarks-3d.py:43-403`) from the committed
 `petsc_perf_breakdown*.csv` artifacts, with the same output filenames so the
 two artifact trees diff cleanly. The event vocabulary is the shared logical
-one (``experiments/profiling.py::DEFAULT_LOGICAL_EVENTS``); events the TPU
-profiler does not record (e.g. ``KSPGMRESOrthogonalization`` — on TPU the
-orthogonalization is fused into the solve kernel and cannot be timed
+one (``experiments/profiling.py::DEFAULT_LOGICAL_EVENTS``); events this
+library's profiler does not record (e.g. ``KSPGMRESOrthogonalization`` —
+the orthogonalization is fused into the compiled solve and cannot be timed
 separately) enter the partitions as zero, exactly how the reference's
 ``.get(col, 0.0)`` treats absent PETSc log events.
 
@@ -71,7 +71,7 @@ def _col(df: pd.DataFrame, name: str) -> pd.Series:
 def normalize_per_solve(df: pd.DataFrame) -> pd.DataFrame:
     """Convert repeat-window event columns to per-solve values.
 
-    The TPU profiler's CSV semantics (``experiments/profiling.py``):
+    The profiler's CSV semantics (``experiments/profiling.py``):
     ``time_total`` is already per-solve (window / repeats); ``time_KSPSolve``
     is the whole repeats window; ``time_MatMult``/``time_PCApply`` are
     probe-extrapolated totals across all repeats (probe dispatch overhead

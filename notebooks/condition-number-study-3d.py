@@ -1,7 +1,7 @@
 # %% [markdown]
 # # Condition-number study (3D, hexahedral) — monolithic and block-wise
 #
-# TPU-native reproduction of
+# JAX reproduction of
 # `/root/reference/notebooks/condition-number-study-3d.py`: hex unit-cube
 # meshes N = 4..16, condition numbers of the monolithic matrix and blocks,
 # slopes vs h, written to
@@ -15,7 +15,7 @@
 import os
 
 # conditioning is an f64 eigen-analysis: run on CPU (exact arithmetic,
-# leaves the TPU free for the profiling sweeps)
+# leaves the GPU free for the profiling sweeps)
 import jax
 
 jax.config.update("jax_platforms", "cpu")

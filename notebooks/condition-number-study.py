@@ -1,7 +1,7 @@
 # %% [markdown]
 # # Condition-number study (2D) — monolithic and block-wise
 #
-# TPU-native reproduction of the reference study
+# JAX reproduction of the reference study
 # (`/root/reference/notebooks/condition-number-study.py`): assemble the
 # BC-eliminated monolithic DPP matrix for N = 4..64, compute condition
 # numbers of the full matrix and its macro/micro diagonal blocks, fit

@@ -1,7 +1,7 @@
 # %% [markdown]
 # # Solver time benchmarks (3D) — unit-cube meshes
 #
-# TPU-native reproduction of
+# JAX reproduction of
 # `/root/reference/notebooks/petsc-profiling-time-benchmarks-3d.py`:
 # profile the solver approaches on tetrahedral unit-cube meshes
 # nx = 4..40 (repeats=3), write
@@ -46,12 +46,12 @@ APPROACHES = [
 
 # %%
 # PERPHIL_PLOTS_ONLY=1 re-renders the figures from the committed CSV
-# without re-running the (hours-long) TPU sweep.
+# without re-running the (hours-long) device sweep.
 #
 # The main CSV runs GMRES+ILU in ORDERING-PARITY mode
 # (pc_factor_mat_ordering_type=rcm: the reference's DMPlex numbering
 # emulation, host-native kernels) so the iteration column matches the
-# reference CSV at every size (6/8/15/26/33). The TPU-production
+# reference CSV at every size (6/8/15/26/33). The default
 # envelope-pattern ILU — a strictly stronger PC with fewer iterations and
 # device-speed applies — is regenerated alongside into
 # `petsc_perf_breakdown_3d_envelope_ilu.csv`.

@@ -1,7 +1,7 @@
 # %% [markdown]
 # # Solver time benchmarks (2D) — event breakdown, KSP composition, memory
 #
-# TPU-native reproduction of
+# JAX reproduction of
 # `/root/reference/notebooks/petsc-profiling-time-benchmarks.py`: profile the
 # five solver approaches over meshes 4 -> 256 (repeats=5, events backend),
 # write `results-conforming-2d/petsc_profiling/petsc_perf_breakdown.csv`
@@ -16,7 +16,7 @@ from pathlib import Path
 
 if os.environ.get("PERPHIL_PLOTS_ONLY"):
     # plots-only mode never executes solves; keep the backend off the
-    # (possibly busy) shared TPU
+    # (possibly busy) shared GPU
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -47,7 +47,7 @@ APPROACHES = [
 
 # %%
 # PERPHIL_PLOTS_ONLY=1 re-renders every figure from the committed CSV
-# without re-running the (hours-long) TPU sweep.
+# without re-running the (hours-long) device sweep.
 if os.environ.get("PERPHIL_PLOTS_ONLY"):
     df = pd.read_csv(OUT / "petsc_perf_breakdown.csv")
     rows = df.to_dict("records")
@@ -153,7 +153,7 @@ fig.savefig(OUT / "ksp_composition.png", dpi=150)
 print("wrote", OUT / "ksp_composition.png")
 
 # %% [markdown]
-# ## Device-memory footprint (TPU HBM, measured via memory_stats)
+# ## Device-memory footprint (measured via memory_stats)
 
 # %%
 fig, ax = plt.subplots(figsize=(6, 4.2))

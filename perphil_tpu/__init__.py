@@ -1,6 +1,6 @@
-"""perphil-tpu: a TPU-native double porosity/permeability (DPP) FEM framework.
+"""perphil-tpu: a double porosity/permeability (DPP) FEM framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 ``ThermoPhase-FCSRG/perphil`` (a Firedrake/PETSc code; see
 ``/root/reference/src/perphil/__init__.py:8-16`` for the feature-flag parity):
 structured quad/tri/hex/tet meshes, two-field Q1/P1 pressure spaces, the
@@ -9,8 +9,8 @@ stencil operators, a PETSc-free Krylov/direct solver stack, manufactured
 solutions, conditioning analysis, and a profiling harness.
 
 Unlike the reference (which cannot import solvers without Firedrake), every
-module here imports and runs on any JAX backend: CPU, TPU, or a multi-device
-mesh. ``HAS_TPU`` mirrors the reference's ``HAS_FIREDRAKE`` capability flag.
+module here imports and runs on any JAX backend: CPU, GPU, or a
+multi-device mesh, in native float64 throughout.
 """
 
 from perphil_tpu import config as _config
@@ -19,14 +19,4 @@ _config.setup()
 
 __version__ = "0.1.0"
 
-__all__ = ["HAS_TPU", "__version__"]
-
-
-def __getattr__(name: str):
-    # HAS_TPU is resolved lazily: probing jax.devices() at import time would
-    # initialize the XLA backend, which forbids a later
-    # jax.distributed.initialize() (multi-host runs must import this package
-    # before bringing up the cluster — see parallel/distributed.py).
-    if name == "HAS_TPU":
-        return _config.has_tpu()
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__all__ = ["__version__"]

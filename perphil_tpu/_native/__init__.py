@@ -1,6 +1,6 @@
 """Native (C++) runtime components, loaded via ctypes.
 
-The compute path of perphil-tpu is pure JAX/XLA/Pallas; the native layer
+The compute path of perphil-tpu is pure JAX/XLA; the native layer
 covers host-side runtime work that is inherently sequential — currently the
 ILU(0) factorization (``csrc/structured_ilu.cpp``), the analogue of PETSc's
 C factorization kernels. Everything degrades gracefully to numpy when no

@@ -7,33 +7,14 @@ the L/U factors' level schedules are computed on the host and the ENTIRE
 solve runs as XLA ops (``lax.fori_loop`` over levels, padded-ELL gathers,
 f64).
 
-Findings (v5e, 2026-08-19, chained-marginal timing):
+Findings so far (CPU x64 XLA): the counts are EXACT on the XLA engine,
+6/8/15 at nx=4/8/16 — they depend only on the linear maps, not the
+execution engine. Its wall-clock is set by per-level-step latency: the
+schedule needs ~10*nx dependent gather+scatter steps per trisolve x 2
+trisolves x its. Its time on the GPU is not measured yet; ``device`` mode
+takes it with the chained-marginal protocol (``utils/marginal.py``).
 
-- **Counts are EXACT on-device**: 6/8/15 at nx=4/8/16 on CPU-x64 XLA and
-  on the TPU (f64 emulation) — confirming the counts depend only on the
-  linear maps, not the execution engine.
-- **Wall-clock loses ~17x**: 526 ms/solve at nx=16 vs ~30 ms on one host
-  core. The cost is per-level-step latency: ~100 us per dependent
-  gather+scatter step through this backend (dynamic gathers are row-DMA,
-  not the ~8 us simple-body step marginal), and the schedule needs
-  ~10*nx levels per trisolve x 2 trisolves x its steps (nx=40
-  extrapolates to ~2.7 s vs the host's 0.419 s).
-- The structural alternatives are blocked: parallel-prefix dense maps
-  explode in memory on unstructured orderings (the structured 2D tree is
-  already ~135 MB), and Mosaic kernels support neither f64 nor
-  unstructured gathers, so the sequential recurrence cannot move
-  in-kernel where iterations would be free.
-
-Conclusion recorded in ``docs/design.md`` §6.2 (updated round 5): the
-GATHER-based on-device formulations lose, but the round-5 dense-band
-block trisolve (``ops/bandsolve.py``) — which trades gathers for
-dense-band MXU/VPU work — beats the reference at every published size
-and the host C++ kernels up to the measured crossover (nx~36-40, where
-the ~bandwidth/15 FLOP inflation of gather-free execution overtakes the
-chip's throughput advantage). Rows carry whichever engine measures
-faster, labeled by ``measurement_class``.
-
-Usage: python -m perphil_tpu.experiments.levelsched_eval [cpu|tpu] nx...
+Usage: python -m perphil_tpu.experiments.levelsched_eval [cpu|device] nx...
 """
 import sys
 
@@ -147,7 +128,7 @@ def run(nx, mode="cpu"):
     its = int(res.iterations)
     ref = REF.get(nx, "n/a")
     print(f"nx={nx}: its={its} (ref {ref}) conv={bool(res.converged)}", flush=True)
-    if mode == "tpu":
+    if mode == "device":
         # chained marginal timing (shared protocol, utils/marginal.py)
         from perphil_tpu.utils.marginal import chained_marginal
 
@@ -169,10 +150,10 @@ def run(nx, mode="cpu"):
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     mode = argv[0] if argv else "cpu"
-    if mode not in ("cpu", "tpu"):
+    if mode not in ("cpu", "device"):
         raise SystemExit(
             f"usage: python -m perphil_tpu.experiments.levelsched_eval "
-            f"cpu|tpu [nx ...] (got mode={mode!r})"
+            f"cpu|device [nx ...] (got mode={mode!r})"
         )
     if mode == "cpu":
         jax.config.update("jax_platforms", "cpu")

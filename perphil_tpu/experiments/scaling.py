@@ -1,7 +1,7 @@
 """Strong/weak scaling harness over device meshes.
 
 The reference scales by mesh resolution only and never exercises its MPI
-domain decomposition in an experiment (SURVEY §2.2); the TPU rebuild's
+domain decomposition in an experiment (SURVEY §2.2); this rebuild's
 domain decomposition is XLA SPMD over a ``jax.sharding.Mesh``
 (``parallel/sharding.py``), and this module measures how solve time scales
 with the device count:
@@ -12,8 +12,8 @@ with the device count:
   per-device share stays constant (``N_k ~ N_1 * k^(1/dim)``) —
   ``efficiency = t_1 / t_k``.
 
-The sweep runs on whatever devices JAX exposes: a TPU pod slice in
-production, or the virtual 8-device CPU mesh
+The sweep runs on whatever devices JAX exposes: the GPUs of one host, or
+the virtual 8-device CPU mesh
 (``--xla_force_host_platform_device_count``) for harness validation on a
 development host — the same programs, shardings, and collectives compile
 either way (GSPMD partitions once per mesh shape). CSV schema:
@@ -24,7 +24,7 @@ Usage::
     python -m perphil_tpu.experiments.scaling [--mode strong weak]
         [--devices 1 2 4 8] [--n 64] [--dim 2] [--repeats 3] [--out CSV]
 
-(On a host without 8 real chips, run under ``JAX_PLATFORMS=cpu
+(On a host without 8 real devices, run under ``JAX_PLATFORMS=cpu
 XLA_FLAGS=--xla_force_host_platform_device_count=8``; the module forces
 the CPU backend itself when it detects fewer real devices than requested.)
 """
@@ -58,7 +58,7 @@ class ScalingRow:
     efficiency: Any
     # device platform ("cpu" = virtual mesh: harness validation only — all
     # k devices share one host's cores, so efficiencies are NOT indicative
-    # of ICI scaling; "tpu" = real chips)
+    # of multi-card scaling; "gpu" = real cards)
     platform: str = "unknown"
     # --- quantities that ARE physically meaningful on a virtual mesh ---
     # (the sharding/collective STRUCTURE is identical to a real pod slice:
@@ -75,7 +75,7 @@ class ScalingRow:
     iteration_parity: bool = False
     # first-class provenance column: "virtual-mesh-validation" rows carry
     # physically meaningless efficiencies (time-sliced host cores) and must
-    # never be quoted as chip measurements; "tpu-chained" = real devices
+    # never be quoted as chip measurements; "gpu" = real devices
     measurement_class: str = ""
 
     def to_dict(self) -> Dict[str, Any]:
@@ -100,7 +100,7 @@ def _halo_bytes(dof_shape, dmesh, bytes_per_elem: int = 8) -> int:
 
 def _matvec_collectives(W, params, dmesh, padding) -> str:
     """Count collective ops in the compiled sharded stacked-matvec HLO —
-    the measurable virtual-mesh twin of 'halo exchange over ICI'."""
+    the measurable virtual-mesh twin of the halo exchange between cards."""
     import jax
     import jax.numpy as jnp
 
@@ -245,7 +245,7 @@ def run_scaling(
                     ),
                     platform=jax.devices()[0].platform,
                     measurement_class=(
-                        "virtual-mesh-validation" if virtual else "tpu-chained"
+                        "virtual-mesh-validation" if virtual else "gpu"
                     ),
                 )
                 rows.append(row)
@@ -285,8 +285,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         default="cpu",
         choices=("cpu", "default"),
         help="cpu (default): virtual device mesh on the host CPU — safe on "
-        "single-chip dev machines; default: whatever JAX exposes (use on a "
-        "real pod slice)",
+        "single-device dev machines; default: whatever JAX exposes (use on "
+        "a multi-GPU host)",
     )
     args = parser.parse_args(argv)
 

@@ -22,13 +22,15 @@ The weak forms match the reference exactly:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import TYPE_CHECKING, Callable, Optional, Tuple
 
 import jax.numpy as jnp
 
 from perphil_tpu.forms.spaces import Function, FunctionSpace, MixedFunctionSpace
 from perphil_tpu.models.dpp.parameters import DPPParameters
-from perphil_tpu.ops.assembly import DPPOperator, FieldOperator
+
+if TYPE_CHECKING:  # ops.assembly imports forms.spaces: import it lazily
+    from perphil_tpu.ops.assembly import DPPOperator, FieldOperator
 
 
 def _validate_mixed(W) -> None:
@@ -45,6 +47,8 @@ class DPPBilinearForm:
 
     def operator(self) -> DPPOperator:
         """Lower to the BC-eliminated stencil operator."""
+        from perphil_tpu.ops.assembly import DPPOperator
+
         return DPPOperator(self.W, self.params)
 
 
@@ -65,6 +69,8 @@ class FieldBilinearForm:
     mu: float
 
     def operator(self) -> FieldOperator:
+        from perphil_tpu.ops.assembly import FieldOperator
+
         return FieldOperator(self.V, self.k, self.beta, self.mu)
 
 
@@ -79,6 +85,8 @@ class FieldLinearForm:
     lagged: Function
 
     def assemble(self) -> jnp.ndarray:
+        from perphil_tpu.ops.assembly import FieldOperator
+
         op = FieldOperator(self.V, 0.0, self.beta, self.mu)
         return op.mass_apply(self.lagged.data)
 
@@ -125,6 +133,8 @@ class DPPResidualForm:
     params: DPPParameters
 
     def operator(self) -> DPPOperator:
+        from perphil_tpu.ops.assembly import DPPOperator
+
         return DPPOperator(self.W, self.params)
 
     def __call__(

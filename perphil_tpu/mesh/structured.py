@@ -4,11 +4,11 @@ The reference builds meshes through Firedrake's DMPlex
 (``/root/reference/src/perphil/mesh/builtin.py:4-20`` for 2D,
 ``fd.UnitCubeMesh`` in ``experiments/petsc_profiling_3d.py:30-31`` and
 ``notebooks/condition-number-study-3d.py:66`` for 3D). All of perphil's
-workloads run on *uniform tensor-product* meshes, so the TPU rebuild stores no
+workloads run on *uniform tensor-product* meshes, so this rebuild stores no
 connectivity at all: a mesh is shape metadata, and every derived quantity
 (coordinates, boundary masks, DoF numbering, element adjacency) is index
 arithmetic. This is what makes assembly and SpMV stencil-shaped and therefore
-XLA/Pallas friendly.
+XLA friendly.
 
 Element types:
   - ``quad`` / ``hex``: tensor-product Q1 cells (Firedrake ``quadrilateral=True``

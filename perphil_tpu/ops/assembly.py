@@ -1,6 +1,6 @@
 """Operator assembly with Dirichlet boundary conditions.
 
-The TPU-native replacement for Firedrake/PETSc assembly
+The JAX replacement for Firedrake/PETSc assembly
 (``fd.assemble(form, bcs=..., mat_type="aij")`` at
 ``/root/reference/src/perphil/solvers/conditioning.py:51-63`` and the implicit
 assembly inside ``LinearVariationalSolver`` at ``solvers/solver.py:66-71``).
@@ -14,7 +14,7 @@ precision (81.91800877610804 monolithic / 3.357638888888892 macro /
 
 Two operator forms are provided:
   - matrix-free grid operators (stencil shifted-adds) — the hot path for
-    Krylov solvers on TPU;
+    Krylov solvers;
   - scipy CSR materialization (host) — for conditioning studies and ILU,
     mirroring ``petsc_matrix.getValuesCSR()`` extraction at
     ``conditioning.py:85-86``.
@@ -99,16 +99,6 @@ def bc_values_per_field(
 # ---------------------------------------------------------------------------
 
 
-def _pallas_matvec_enabled() -> bool:
-    import os
-
-    if os.environ.get("PERPHIL_TPU_PALLAS_MATVEC", "0") != "1":
-        return False
-    from perphil_tpu.ops.pallas_kernels import pallas_available
-
-    return pallas_available()
-
-
 def _masks(mesh: StructuredMesh, padding: Tuple[int, ...] = ()):
     # kept as numpy: these are cached on operator instances that outlive any
     # single jit trace — jnp constants created inside a trace would leak
@@ -117,8 +107,7 @@ def _masks(mesh: StructuredMesh, padding: Tuple[int, ...] = ()):
         # phantom nodes (high end of each grid axis) are marked boundary:
         # identity rows with zero data, so solves on the padded grid produce
         # exactly the unpadded iterates. Used to make node counts divisible
-        # by device-mesh axes (GSPMD rejects uneven shardings) and to align
-        # the innermost axis to TPU lanes.
+        # by device-mesh axes (GSPMD rejects uneven shardings).
         bdry = np.pad(
             bdry, [(0, p) for p in padding], mode="constant", constant_values=True
         )
@@ -180,29 +169,12 @@ class DPPOperator:
     def _mask_arrays(self):
         return _masks(self.mesh, self.padding)
 
-    @cached_property
-    def _combined_stencils(self):
-        K_st, M_st = self._stencils
-        p = self.params
-        S1 = np.asarray((p.k1 / p.mu) * K_st + (p.beta / p.mu) * M_st)
-        S2 = np.asarray((p.k2 / p.mu) * K_st + (p.beta / p.mu) * M_st)
-        C = np.asarray(-(p.beta / p.mu) * M_st)
-        return S1, S2, C
-
     def matvec(self, z1: jnp.ndarray, z2: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
         """Apply the BC-eliminated operator to grid-shaped fields."""
         p = self.params
         bdry, interior = self._mask_arrays
         z1i = jnp.where(interior, z1, 0.0)
         z2i = jnp.where(interior, z2, 0.0)
-        if z1.dtype == jnp.float32 and _pallas_matvec_enabled():
-            # opt-in fused single-VMEM-pass kernel (f32 only; Mosaic has
-            # no f64) — set PERPHIL_TPU_PALLAS_MATVEC=1
-            from perphil_tpu.ops.pallas_kernels import fused_dpp_apply
-
-            S1, S2, C = self._combined_stencils
-            y1, y2 = fused_dpp_apply(z1i, z2i, S1, S2, C)
-            return jnp.where(bdry, z1, y1), jnp.where(bdry, z2, y2)
         K_st, M_st = self._stencils
         Kz1 = apply_stencil(z1i, K_st)
         Kz2 = apply_stencil(z2i, K_st)
@@ -301,7 +273,7 @@ class DPPOperator:
         d2 = jnp.where(bdry, 1.0, d2c * one)
         return jnp.concatenate([d1.ravel(), d2.ravel()])
 
-    # -- double-float (two-f32) views: the TPU Krylov fast path -------------
+    # -- double-float (two-f32) views: the df32 Krylov mode ------------------
 
     def matvec_df(self, z1, z2):
         """Operator application on per-field double-float pairs (see
@@ -478,7 +450,7 @@ class FieldOperator:
         return (self.beta / self.mu) * apply_stencil(z, M_st)
 
     def matvec_df(self, z):
-        """Block application on a double-float pair (TPU Krylov fast path)."""
+        """Block application on a double-float pair (df32 Krylov mode)."""
         from perphil_tpu.ops.df32 import df_apply_stencil
 
         bdry, interior = self._mask_arrays

@@ -1,6 +1,6 @@
 """Exact fast direct solvers via tensor-product fast diagonalization.
 
-The TPU-native replacement for MUMPS sparse LU
+The JAX replacement for MUMPS sparse LU
 (``pc_factor_mat_solver_type: mumps`` at
 ``/root/reference/src/perphil/solvers/parameters.py:4-9``).
 
@@ -11,7 +11,7 @@ are tensor products of 1D tridiagonal stiffness/mass pairs:
 
 The generalized eigenproblem ``K1 S = M1 S diag(lam)`` (host-side scipy eigh,
 sizes <= a few thousand) simultaneously diagonalizes every block, so a solve
-is d small dense matmuls per direction — MXU-resident work — plus a diagonal
+is d small dense matmuls per direction plus a diagonal
 scaling. This is *exact to roundoff* like LU, but O(n^(1+1/d)) instead of
 superlinear fill-in, needs no factorization memory, and batches perfectly.
 
@@ -67,8 +67,9 @@ def _transform(f: jnp.ndarray, mats, transpose: bool) -> jnp.ndarray:
     ``mats`` are coordinate-ordered (x first); grid axes are reversed
     (slowest first), so axis ``a`` of the grid uses ``mats[d-1-a]``.
 
-    ``precision=HIGHEST`` matters in float32: TPU matmuls otherwise default
-    to bf16 multiplications, which would stall mixed-precision refinement.
+    ``precision=HIGHEST`` matters in float32: GPU matmuls otherwise may run
+    in TF32 (about three decimal digits), which would stall mixed-precision
+    refinement.
     """
     import jax
 

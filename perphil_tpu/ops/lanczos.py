@@ -1,6 +1,6 @@
 """On-device Lanczos extremal-eigenvalue estimation.
 
-The TPU-native replacement for ARPACK (scipy ``svds``/``eigsh``) used by the
+The JAX replacement for ARPACK (scipy ``svds``/``eigsh``) used by the
 reference's sparse condition-number path
 (``/root/reference/src/perphil/solvers/conditioning.py:156-209``). All the
 matrices perphil analyzes (BC-eliminated monolithic DPP and its diagonal
@@ -13,7 +13,7 @@ fast-diagonalization direct solver — the same trick ARPACK's shift-invert
 mode uses, but with an O(n^(1+1/d)) tensor solve instead of sparse LU.
 
 Full reorthogonalization is used (the basis is a (k, n) matrix so the
-projections are MXU-friendly tall matmuls), making Ritz convergence robust
+projections are tall matmuls), making Ritz convergence robust
 at the modest k (<= ~100) these spectra need.
 """
 

@@ -1,17 +1,17 @@
 """Mixed-precision direct solver: f32 fast-diagonalization + double-float
 iterative refinement.
 
-TPU float64 is software-emulated (30-100x slower than f32). This solver
-reaches float64-level accuracy at float32 speed:
+This solver reaches float64-level accuracy from float32 arithmetic:
 
-  1. the tensor fast-diagonalization solve runs in float32 on the MXU
-     (``precision=HIGHEST`` so the transforms are true-f32, not bf16);
+  1. the tensor fast-diagonalization solve runs in float32
+     (``precision=HIGHEST`` so the transforms are true-f32, not bf16 or
+     TF32);
   2. residuals are computed in double-float (two-f32) arithmetic
-     (``ops/df32.py``, ~49-bit mantissa) — native-speed VPU ops;
+     (``ops/df32.py``, ~49-bit mantissa);
   3. iterative refinement contracts the error by ~kappa(A) * eps_f32 per
      step (~3e-3 at 128^3), so a handful of steps reach ~1e-12 relative.
 
-This is the production "MUMPS role" solver for large meshes; select it with
+This is an alternative "MUMPS role" solver; select it with
 ``pc_factor_mat_solver_type: "fastdiag_mixed"`` in the standard preset
 dictionaries (the reference's key for choosing the factorization backend,
 ``/root/reference/src/perphil/solvers/parameters.py:8``).
@@ -51,11 +51,8 @@ class MixedPrecisionFieldDirect:
     """Refined f32 direct solve of one BC-eliminated diagonal block
     ``(k/mu) K + (beta/mu) M`` — the fieldsplit "exact LU" role.
 
-    Beyond speed, this is an *accuracy* fix on TPU: the emulated-f64 matmul
-    path degrades with matrix size (observed: fieldsplit-LU outer GMRES
-    needed 31 instead of 4 iterations at 2D N=256 because the f64 fast-diag
-    transforms were only ~1e-7 accurate), whereas double-float refinement
-    converges to ~1e-12 regardless of the backend's f64 emulation quality.
+    Double-float refinement converges to ~1e-12 relative, independent of
+    the accuracy of the backend's float64 matmuls.
     """
 
     mesh: StructuredMesh
@@ -67,7 +64,9 @@ class MixedPrecisionFieldDirect:
 
     def __post_init__(self):
         from perphil_tpu.ops.assembly import normalize_padding
+        from perphil_tpu.ops.df32 import require_exact_eft
 
+        require_exact_eft()
         object.__setattr__(self, "padding", normalize_padding(self.mesh, self.padding))
 
     @cached_property
@@ -150,7 +149,9 @@ class MixedPrecisionDPPDirect:
 
     def __post_init__(self):
         from perphil_tpu.ops.assembly import normalize_padding
+        from perphil_tpu.ops.df32 import require_exact_eft
 
+        require_exact_eft()
         object.__setattr__(
             self, "padding", normalize_padding(self.mesh, self.padding)
         )

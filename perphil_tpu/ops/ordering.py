@@ -37,7 +37,7 @@ orderings themselves:
 
 These are analysis tools (pure host code, used by
 ``experiments/ordering_study.py`` and the regression tests); production
-solves stay on the structured TPU path, whose envelope-pattern ILU is both
+solves stay on the structured device path, whose envelope-pattern ILU is both
 faster per application and stronger per iteration.
 """
 

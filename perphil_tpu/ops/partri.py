@@ -1,6 +1,6 @@
 """Parallel-prefix (scan-tree) exact triangular solves on structured grids.
 
-TPU-native replacement for the sequential sparse triangular solves inside
+JAX replacement for the sequential sparse triangular solves inside
 PETSc's ILU(0) preconditioner application and Gauss-Seidel sweeps
 (``MatSolve`` on factored AIJ matrices; reference usage via
 ``pc_type: ilu`` at ``/root/reference/src/perphil/solvers/parameters.py:27``
@@ -8,9 +8,8 @@ and ``snes_type: ngs`` at ``parameters.py:71-77``).
 
 Why not a wavefront: level-scheduled sweeps (``ops/ilu.py``) take one tiny
 gather/scatter step per level — thousands of latency-bound device steps per
-solve (measured ~144 ms per monolithic apply at 2D N=256). Here the same
-recurrences are solved *exactly* in O(log n) stages of batched matrix-vector
-products — MXU/VPU-friendly, bandwidth-bound work.
+solve. Here the same recurrences are solved *exactly* in O(log n) stages of
+batched matrix-vector products — bandwidth-bound work.
 
 The key identity: a lower-triangular solve on a structured grid in
 lexicographic order is a linear recurrence
@@ -35,11 +34,11 @@ only ~2n batched matrix-vector products in ~2 log2(n) dependent stages.
 Within a row (1D recurrence), maps are scalars and the same tree runs as
 pure vector arithmetic (``ScalarChainScan``). In 3D the plane maps are dense
 (ny*nx)^2 matrices built by applying the batched 2D solver to the sparse
-cross-plane couplings — a one-time MXU job.
+cross-plane couplings — a one-time batched matmul job.
 
-All matrix products/matvecs run with ``precision=HIGHEST`` (TPU f32 matmuls
-otherwise default to bf16, which would destroy the exactness this module
-exists to provide).
+All matrix products/matvecs run with ``precision=HIGHEST`` (f32 matmuls
+otherwise may run in bf16 or TF32, which would destroy the exactness this
+module exists to provide).
 """
 
 from __future__ import annotations
@@ -63,9 +62,8 @@ def _weight_dtype():
     tree mat-vec at the cost of ~3 decimal digits of preconditioner
     quality (the recurrence STATE stays f32; only the fixed maps are
     stored low-precision). Off by default — the golden ILU iteration
-    counts require full-f32 application. Measured on v5e at 2D N=256:
-    per-field ILU apply 3.29 -> 2.75 ms, SS-GMRES+ILU solve 3.51 ->
-    2.32 s (outer iteration count unchanged at 4)."""
+    counts require full-f32 application; the SS-GMRES+ILU outer count
+    stays at 4. Its effect on GPU time is not measured."""
     import os
 
     if _WEIGHT_DTYPE_OVERRIDE:
@@ -92,15 +90,12 @@ class weight_dtype:
 
 def _group_size() -> int:
     """Row-group size for the grouped 2D trisolve (see GridTriSolve2D).
-    Default 0 = the dense-map tree. MEASURED NEGATIVE on the target
-    hardware (v5e, 2D N=256 monolithic ILU apply): tree 0.91 ms vs
-    grouped 2.46 ms — the grouped pass trades the tree's streaming of
-    ~135 MB of composite maps (HBM-bound at ~520 GB/s, near the
-    achievable floor) for ~13k tiny dependent ops whose fixed per-op
-    cost dominates, and the unrolled passes inflate compile time ~5x.
+    Default 0 = the dense-map tree. The grouped pass trades the tree's
+    streaming of ~135 MB of composite maps (2D N=256) for ~13k tiny
+    dependent ops, and the unrolled passes inflate compile time ~5x.
     Kept as an env-gated experiment (exactness pinned by
-    ``test_grouped_trisolve_matches_tree``) because the trade flips on
-    backends with cheap small ops."""
+    ``test_grouped_trisolve_matches_tree``); which side wins depends on
+    the backend's per-op cost, not measured on the GPU yet."""
     import os
 
     return max(0, int(os.environ.get("PERPHIL_TPU_PARTRI_GROUP", "0")))
@@ -281,9 +276,9 @@ class GridTriSolve2D:
     maps and re-derives within-group states from the banded coefficients
     (two unrolled G-step passes + one short boundary chain): ~10x less
     memory traffic for the same exact recurrence, at the cost of computing
-    each within-group row twice. Measured SLOWER on v5e (see
-    :func:`_group_size`) — the tree is the production default; this stays
-    as the evaluated alternative. Applies only to unbatched solves with
+    each within-group row twice (see :func:`_group_size`) — the tree is
+    the default; this stays as the evaluated alternative. Applies only to
+    unbatched solves with
     ny >= 2G (the 3D plane solver stays on the tree: its batched
     densification path needs ``chain``/vmap semantics).
     """
@@ -313,7 +308,7 @@ class GridTriSolve2D:
         # M_y = T_y B_y: solve (I - diag(wr,-1)) M = B. Done by the exact
         # sequential recurrence (one compiled scan, setup-only) rather than
         # XLA's blocked TriangularSolve, whose internal matmuls would run at
-        # the backend's default (bf16 on TPU) precision.
+        # the backend's default (possibly bf16 or TF32) precision.
         M = _unit_bidiag_solve(wr, B)
         # element axis (y) first for the chain: (ny, *batch, nx, nx)
         M = jnp.moveaxis(M, len(self.batch), 0)
@@ -450,7 +445,7 @@ class GridTriSolve3D:
 
     Plane maps ``M_z = T_z B_z`` are densified (``(nz, ny*nx, ny*nx)``) by
     applying the batched 2D solver to the sparse cross-plane couplings —
-    a one-time batched-MXU job — then the affine tree runs over planes.
+    a one-time batched matmul job — then the affine tree runs over planes.
     """
 
     def __init__(self, plane2d: GridTriSolve2D, bz: dict):

@@ -5,7 +5,7 @@ The reference accepts any polynomial degree on any cell through Firedrake
 generalization (``ops/tensorfem.py``) covers Qp on quads/hexes, and this
 module closes the remaining surface: P2 on triangles/tets.
 
-The TPU-native observation: on the Kuhn-triangulated structured meshes this
+The key observation: on the Kuhn-triangulated structured meshes this
 library builds (2 triangles per quad, 6 tets per cube — ``ops/element.py``),
 the P2 DoFs (vertices + edge midpoints) are EXACTLY the nodes of the
 once-refined lattice: every edge of the triangulation (axis edges, face

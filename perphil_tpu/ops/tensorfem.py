@@ -3,7 +3,7 @@
 The reference supports any polynomial degree through Firedrake
 (``/root/reference/src/perphil/forms/spaces.py:5-36`` — ``pressure_deg`` is
 a free parameter even though every published artifact uses degree 1). The
-TPU-native generalization exploits the tensor-product structure that
+generalization here exploits the tensor-product structure that
 Firedrake cannot: on uniform quad/hex meshes the degree-p stiffness and
 mass operators factor as
 
@@ -11,7 +11,7 @@ mass operators factor as
 
 where (K1, M1) are the 1D degree-p Lagrange matrices on p*N+1 uniform
 nodes. Every operator application is then d dense (n x n) matmuls over the
-DoF lattice — MXU-resident work at any degree — and the generalized 1D
+DoF lattice at any degree, and the generalized 1D
 eigenproblem gives the exact fast-diagonalization direct solve of the
 coupled 2-field system, exactly as in ``ops/direct.py`` for Q1.
 
@@ -68,7 +68,7 @@ def lagrange_ref_matrices(p: int) -> Tuple[np.ndarray, np.ndarray]:
 def assemble_1d(p: int, cells: int, h: float) -> Tuple[np.ndarray, np.ndarray]:
     """Global 1D degree-p (K1, M1) on ``cells`` uniform elements of size h:
     dense (p*cells+1)^2 arrays (n stays small enough that dense storage and
-    matmuls are the right representation on the MXU)."""
+    matmuls are the right representation)."""
     Khat, Mhat = lagrange_ref_matrices(p)
     n = p * cells + 1
     K = np.zeros((n, n))
@@ -102,7 +102,7 @@ def _pad_identity(A: np.ndarray, pad: int) -> np.ndarray:
 
 
 def _apply_axis(u: jnp.ndarray, A: jnp.ndarray, axis: int) -> jnp.ndarray:
-    """Contract matrix A against one grid axis (dense matmul on the MXU)."""
+    """Contract matrix A against one grid axis (dense matmul)."""
     return jnp.moveaxis(
         jnp.tensordot(A, u, axes=([1], [axis]), precision=jax.lax.Precision.HIGHEST),
         0,

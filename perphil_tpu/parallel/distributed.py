@@ -3,11 +3,11 @@
 The reference scales across nodes with MPI: ``mpiexec -n P`` launches P
 ranks, DMPlex partitions the mesh, and PETSc's VecScatter/allreduce move
 data (SURVEY §2.2; reference ``petsc_profiling.py:126-137`` reads
-``COMM_WORLD`` size). The TPU-native equivalent is JAX's multi-controller
+``COMM_WORLD`` size). The JAX equivalent is its multi-controller
 runtime: every host runs the same program, ``jax.distributed.initialize``
 wires the hosts into one cluster, and a single global ``Mesh`` spans all
-chips — after which the SPMD story is *identical* to single-host: the
-compiled solver sees global arrays and XLA inserts ICI/DCN collectives.
+devices — after which the SPMD story is *identical* to single-host: the
+compiled solver sees global arrays and XLA inserts the collectives.
 
 Environment contract (mirrors how MPI launchers export rank/size):
 
@@ -16,9 +16,10 @@ Environment contract (mirrors how MPI launchers export rank/size):
   PERPHIL_PROCESS_ID      this process's rank in [0, P)
 
 Standard JAX variables (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES,
-JAX_PROCESS_ID) take precedence when set — on Cloud TPU pods none of this
-is needed: ``initialize_from_env()`` falls through to JAX's automatic
-TPU-metadata bootstrap.
+JAX_PROCESS_ID) take precedence when set. With none of them set,
+``PERPHIL_AUTO_DISTRIBUTED=1`` lets ``jax.distributed.initialize()``
+discover the cluster itself, which works only where a cluster manager
+(e.g. SLURM) describes it; elsewhere pass the three values explicitly.
 """
 
 from __future__ import annotations
@@ -70,8 +71,8 @@ def initialize_from_env(local_device_count: Optional[int] = None) -> bool:
             f"num_processes={num!r}, process_id={pid!r}"
         )
     if num is None:
-        # On TPU pod slices jax.distributed.initialize() self-discovers via
-        # the metadata server. IMPORTANT: do not touch jax.default_backend()
+        # Under a cluster manager jax.distributed.initialize() discovers
+        # the cluster itself. IMPORTANT: do not touch jax.default_backend()
         # (or any other backend-initializing API) before initialize() — JAX
         # requires distributed init to happen first, so gate only on the
         # env flag and let initialize() itself fail on non-pod hosts.

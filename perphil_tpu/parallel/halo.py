@@ -3,11 +3,11 @@
 ``parallel.sharding`` relies on XLA's SPMD partitioner to derive halo
 exchanges automatically from the shifted-slice stencils — the recommended
 default. This module provides the *explicit* formulation: fields live as
-per-device blocks inside ``jax.shard_map``, neighbor planes move over ICI
-with ``jax.lax.ppermute``, and the stencil is applied locally. It is the
+per-device blocks inside ``jax.shard_map``, neighbor planes move between
+devices with ``jax.lax.ppermute``, and the stencil is applied locally. It is the
 direct analogue of PETSc's VecScatter ghost updates (SURVEY §2.2), kept as
-the escape hatch for when manual communication scheduling (overlap, Pallas
-remote-DMA kernels) should beat the partitioner's choices.
+the escape hatch for when manual communication scheduling (overlap)
+should beat the partitioner's choices.
 
 Supports sharding along any prefix of the grid axes (slabs on 1 axis,
 pencils on 2, blocks on 3). Corner/edge halos for the full 3^d stencil
@@ -18,7 +18,7 @@ neighbors propagate in d hops without explicit corner messages.
 ``dryrun_multichip`` (__graft_entry__.py) checks this path against the
 GSPMD-derived matvec on every run; ``benchmark_vs_gspmd`` times both on
 the current mesh (on CPU virtual devices this measures dispatch overhead
-only — ICI numbers require a real pod slice).
+only — interconnect numbers require real devices).
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ from perphil_tpu.ops.stencil import apply_stencil
 
 def _exchange(z, axis_name: str, grid_axis: int, n_shards: int):
     """Extend a local block by one neighbor plane on each side of
-    ``grid_axis``, moved over ICI. Edge shards receive zeros — exactly the
+    ``grid_axis``, moved between devices. Edge shards receive zeros — exactly the
     zero-Dirichlet-column semantics of the eliminated operator."""
     fwd = [(i, i + 1) for i in range(n_shards - 1)]
     bwd = [(i + 1, i) for i in range(n_shards - 1)]

@@ -2,15 +2,16 @@
 
 The reference scales by MPI domain decomposition through Firedrake/DMPlex
 and PETSc's distributed Mat/Vec (SURVEY §2.2): partitioned meshes, halo
-exchange per SpMV, allreduce per Krylov dot product. The TPU-native
-equivalent is declarative SPMD:
+exchange per SpMV, allreduce per Krylov dot product. The JAX equivalent
+is declarative SPMD:
 
-  - a ``jax.sharding.Mesh`` over the device grid (ICI on real pods),
+  - a ``jax.sharding.Mesh`` over the devices,
   - fields laid out as stacked grids ``(2, nz, ny, nx)`` sharded along
     grid axes with ``NamedSharding``,
   - the *same* compiled solver functions as single-chip: XLA's SPMD
     partitioner turns the stencil's shifted slices into halo exchanges
-    (collective-permutes over ICI) and Krylov dot products into psums.
+    (collective-permutes between devices) and Krylov dot products into
+    psums.
 
 There is no separate "distributed solver": placement of the boundary-value
 inputs decides the partitioning, which is what makes this design idiomatic
@@ -41,8 +42,9 @@ def device_mesh(
 ) -> Mesh:
     """Build a device mesh, e.g. ``device_mesh([4, 2])`` -> axes ("z","y").
 
-    On a real pod slice the device order follows ICI topology
-    (``jax.devices()`` default); on CPU the virtual devices stand in.
+    Devices follow ``jax.devices()`` order; the GPUs of one host are joined
+    all to all, so no topology-aware ordering applies. On CPU the virtual
+    devices stand in.
     """
     devices = list(devices if devices is not None else jax.devices())
     n = int(np.prod(axis_sizes))

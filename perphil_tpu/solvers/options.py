@@ -4,7 +4,7 @@ The reference exposes every solver's configuration to the PETSc options
 database through ``options_prefix`` ("dpp", "dpp_nonlinear",
 ``f"dpp_{solver.name}"`` — reference ``solver.py:35,84``,
 ``convergence_2d.py:96``), so users can override any option from the command
-line (``-dpp_ksp_rtol 1e-10``). The TPU equivalent is a process-global
+line (``-dpp_ksp_rtol 1e-10``). The equivalent here is a process-global
 options database plus an environment hook:
 
   - programmatic: ``set_options("dpp", ksp_rtol=1e-10)``

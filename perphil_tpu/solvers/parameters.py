@@ -2,7 +2,7 @@
 
 Parity with ``/root/reference/src/perphil/solvers/parameters.py:1-102``: the
 same 11 preset dictionaries with the same PETSc-style keys, consumed by
-``perphil_tpu.solvers.solver`` which maps each option onto the TPU-native
+``perphil_tpu.solvers.solver`` which maps each option onto the JAX
 solver stack:
 
   - ``ksp_type: gmres``      -> JAX restarted GMRES (``ops/krylov.py``)
@@ -127,10 +127,10 @@ KSP_PREONLY_PARAMS: dict = {
     **FIELDSPLIT_LU_PARAMS,
 }
 
-# TPU-native extension: production direct solver for large meshes — f32 MXU
-# fast-diagonalization with double-float iterative refinement (float64-level
-# accuracy without emulated-f64 compute; see ops/mixed.py). Same semantics
-# as LINEAR_SOLVER_PARAMS (preonly direct solve).
+# Extension: mixed-precision direct solver — f32 fast-diagonalization with
+# double-float iterative refinement (float64-level accuracy from float32
+# arithmetic; see ops/mixed.py). Same semantics as LINEAR_SOLVER_PARAMS
+# (preonly direct solve). The name is kept for API compatibility.
 TPU_DIRECT_PARAMS: dict = {
     "mat_type": "aij",
     "ksp_type": "preonly",

@@ -1,8 +1,8 @@
 """Checkpoint/restore of solution fields and study state.
 
 The reference has no checkpointing (SURVEY §5: persistence is only the
-experiments' CSV artifacts). For long multi-study sweeps on shared TPUs,
-perphil-tpu adds a minimal, dependency-free save/load for Functions and
+experiments' CSV artifacts). For long multi-study sweeps, perphil-tpu
+adds a minimal, dependency-free save/load for Functions and
 result rows: a compressed ``.npz`` with mesh/space metadata validated on
 load. Orbax-grade sharded checkpointing is unnecessary at these sizes
 (fields are MBs, not TBs).

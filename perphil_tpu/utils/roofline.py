@@ -1,44 +1,55 @@
-"""Roofline/MFU characterization of compiled kernels.
+"""Roofline characterization of compiled kernels.
 
-Locates a compiled JAX computation on the TPU roofline: achieved GFLOP/s
+Locates a compiled JAX computation on the device roofline: achieved GFLOP/s
 and GB/s (from XLA's own cost model via ``compiled.cost_analysis()``)
-against the chip's peak compute and HBM bandwidth. The reference has no
-analogue (PETSc logs report MFlops against no roofline); this answers the
-judge's question "is 4 ms near peak or 10x off?" quantitatively.
+against the device's peak compute and memory bandwidth. The reference has
+no analogue (PETSc logs report MFlops against no roofline).
 
-Peaks are per-chip. TPU v5e (v5 lite, the attached device): 197 TFLOP/s
-bf16 MXU, ~1/4 of that for float32 (the MXU is a bf16 multiplier with f32
-accumulate; HIGHEST-precision f32 matmuls run as multi-pass bf16), and
-819 GB/s HBM. Unknown platforms fall back to v5e numbers with a flag set.
+Peaks are per device and keyed by ``jax.Device.device_kind``. A device that
+is not in the table is an error, not a default: a roofline share against
+another device's peaks is a wrong number.
+
+Source: NVIDIA H100 Tensor Core GPU data sheet, SXM5 part, dense rates
+without sparsity, at the full 700 W power limit: 989 TFLOP/s bf16 tensor
+core, 67 TFLOP/s FP64 tensor core, 3.35 TB/s HBM3. A card set to a lower
+power limit cannot hold these rates; report the limit beside any share.
 """
 
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import jax
 
-# name -> (peak bf16 TFLOP/s, peak HBM GB/s)
-_PEAKS: Dict[str, Tuple[float, float]] = {
-    "v5e": (197.0, 819.0),
-    "v5 lite": (197.0, 819.0),
-    "v5p": (459.0, 2765.0),
-    "v4": (275.0, 1228.0),
-    "v6e": (918.0, 1640.0),
+
+class Peaks(NamedTuple):
+    bf16_tflops: float
+    fp64_tflops: float
+    hbm_gbs: float
+    label: str
+
+
+# device_kind -> published peaks (see the module docstring for the source)
+PEAKS: Dict[str, Peaks] = {
+    "NVIDIA H100 80GB HBM3": Peaks(989.0, 67.0, 3350.0, "H100 SXM"),
 }
 
 
-def device_peaks() -> Tuple[float, float, str]:
-    """(bf16 TFLOP/s, HBM GB/s, label) for the default device."""
+def device_peaks(kind: Optional[str] = None) -> Peaks:
+    """Published peaks of ``kind`` (default: the first JAX device's kind).
+
+    :raises KeyError: for a device kind that is not in :data:`PEAKS`.
+    """
+    if kind is None:
+        kind = jax.devices()[0].device_kind
     try:
-        kind = jax.devices()[0].device_kind.lower()
-    except Exception:
-        kind = "unknown"
-    for key, peaks in _PEAKS.items():
-        if key in kind:
-            return (*peaks, key)
-    return (*_PEAKS["v5e"], f"assumed-v5e({kind})")
+        return PEAKS[kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peaks for device kind {kind!r}; add it to "
+            "perphil_tpu.utils.roofline.PEAKS with its source"
+        ) from None
 
 
 @dataclass
@@ -52,16 +63,16 @@ class RooflinePoint:
     gflops: float  # achieved
     gbs: float  # achieved
     intensity: float  # flops/byte
-    mfu_bf16: float  # achieved / peak bf16 compute
-    hbm_frac: float  # achieved / peak HBM bandwidth
-    bound: str  # "compute" or "memory" at this intensity
+    fp64_frac: float  # achieved / peak FP64 compute
+    hbm_frac: float  # achieved / peak memory bandwidth
+    bound: str  # "compute" or "memory" at this intensity (FP64 ridge)
     device: str
 
     def as_dict(self) -> Dict[str, Any]:
         return asdict(self)
 
 
-def cost_of(compiled) -> Tuple[float, float]:
+def cost_of(compiled) -> tuple:
     """(flops, bytes accessed) from XLA's cost analysis of a compiled
     computation (``jax.jit(f).lower(*args).compile()``)."""
     ca = compiled.cost_analysis()
@@ -75,14 +86,15 @@ def analyze(
     seconds: float,
     flops: float,
     bytes_accessed: float,
-    peaks: Optional[Tuple[float, float, str]] = None,
+    peaks: Optional[Peaks] = None,
 ) -> RooflinePoint:
-    """Locate a measured kernel execution on the device roofline."""
-    tflops_peak, gbs_peak, device = peaks or device_peaks()
+    """Locate a measured kernel execution on the device roofline. The
+    solvers compute in float64, so the compute roof is the FP64 peak."""
+    pk = peaks or device_peaks()
     gflops = flops / seconds / 1e9
     gbs = bytes_accessed / seconds / 1e9
     intensity = flops / max(bytes_accessed, 1.0)
-    ridge = tflops_peak * 1e3 / gbs_peak  # flops/byte where roofs meet
+    ridge = pk.fp64_tflops * 1e3 / pk.hbm_gbs  # flops/byte where roofs meet
     return RooflinePoint(
         name=name,
         seconds=seconds,
@@ -91,10 +103,10 @@ def analyze(
         gflops=gflops,
         gbs=gbs,
         intensity=intensity,
-        mfu_bf16=gflops / (tflops_peak * 1e3),
-        hbm_frac=gbs / gbs_peak,
+        fp64_frac=gflops / (pk.fp64_tflops * 1e3),
+        hbm_frac=gbs / pk.hbm_gbs,
         bound="compute" if intensity >= ridge else "memory",
-        device=device,
+        device=pk.label,
     )
 
 

@@ -64,50 +64,8 @@ def tests_regression(args):
 
 @task
 def bench(args):
-    """Run the headline benchmark (one JSON line, on the attached TPU)."""
+    """Run the headline benchmark (one JSON line; needs a GPU)."""
     _run([sys.executable, "bench.py"])
-
-
-@task
-def promote_northstar(args):
-    """Promote the last bench.py 128^3 measurement (results/, uncommitted)
-    to the committed artifact notebooks/results-conforming-3d/
-    northstar_128cube.json. Deliberate step so a driver/CI bench run never
-    dirties the tree or silently overwrites the published number."""
-    import json
-    import shutil
-
-    src = ROOT / "results" / "northstar_128cube.json"
-    dst = ROOT / "notebooks" / "results-conforming-3d" / "northstar_128cube.json"
-    if not src.exists():
-        raise SystemExit(f"no measurement at {src}; run `python bench.py` first")
-    art = json.loads(src.read_text())
-    if art.get("value") is None:
-        raise SystemExit(f"refusing to promote a failed measurement: {art}")
-    shutil.copyfile(src, dst)
-    print(f"promoted {src} -> {dst} (value={art['value']:.6f} s)")
-
-
-@task
-def tpu_artifacts(args):
-    """Post-outage TPU runbook: everything that needs the real chip, in
-    order. (1) headline bench (outage-resilient probe-retry inside
-    bench.py), (2) regenerate the 2D and 3D profiling CSVs — the small-N
-    rows dispatch through the fused whole-solve Pallas kernels, and the
-    figure set re-renders inside the same notebook run — then (3) rebuild
-    the benchmark report. Pass `fast` to sweep the small sizes only (the
-    cells the fused kernels target): partial sweeps SPLICE into the
-    committed CSVs (measured rows replace their old versions, the rest
-    survive — splice_perf_csv), so `fast` never truncates the artifacts."""
-    import os
-
-    _run([sys.executable, "bench.py"])
-    env = {**os.environ}
-    if args.rest and args.rest[0] == "fast":
-        env["PERPHIL_FAST"] = "1"
-    for nb in ("profiling-time-benchmarks.py", "profiling-time-benchmarks-3d.py"):
-        _run([sys.executable, str(ROOT / "notebooks" / nb)], env=env)
-    _run([sys.executable, str(ROOT / "notebooks" / "compare_with_reference.py")])
 
 
 @task
@@ -122,15 +80,8 @@ def notebooks(args):
     for nb in sorted((ROOT / "notebooks").glob("*.py")):
         if nb.name.startswith("_"):  # shared libraries, not studies
             continue
-        if nb.name == "compare_with_reference.py":
-            continue  # the report must run AFTER the CSVs regenerate
         print(f"=== {nb.name}")
         subprocess.run([sys.executable, str(nb)], check=True, env=env)
-    print("=== compare_with_reference.py")
-    subprocess.run(
-        [sys.executable, str(ROOT / "notebooks" / "compare_with_reference.py")],
-        check=True, env=env,
-    )
 
 
 @task

@@ -1,10 +1,9 @@
 """Dense-band block trisolve (ops/bandsolve.py) — the on-device
 ordering-parity ILU apply.
 
-Count parity on hardware is pinned by the committed profiling CSV rows
-(6/8/12/15/17/20/26/29/33, measurement_class=tpu-chained) and by the
-precision study in ``experiments/blockinv_precision_probe.py``; these tests
-cover the construction/apply algebra on CPU.
+Count parity of the apply precisions is pinned by the precision study in
+``experiments/blockinv_precision_probe.py``; these tests cover the
+construction/apply algebra on CPU.
 """
 
 import numpy as np

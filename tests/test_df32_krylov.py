@@ -88,7 +88,7 @@ def test_df32_gmres_count_parity(approach, N, want, monkeypatch):
 
 
 def test_df32_ngs_count_matches_native(monkeypatch):
-    """The df32 pointwise-GS Picard driver (TPU default; residual carried in
+    """The df32 pointwise-GS Picard driver (opt-in; residual carried in
     the loop state) reproduces the native-f64 sweep count exactly."""
     from perphil_tpu.forms import create_function_spaces, mixed_space
     from perphil_tpu.mesh import create_mesh
@@ -159,8 +159,8 @@ def test_nonlinear_degree2_ksponly_and_clear_error():
 def test_krylov_batch_equivalence():
     """k masked iterations per while-loop trip must reproduce the plain
     loop's iteration counts exactly and its iterates to the df32 noise
-    floor (bit-identical on TPU-class backends; on CPU jit the documented
-    EFT-contraction noise bounds the difference — see ops/df32)."""
+    floor (on CPU jit the documented EFT-contraction noise bounds the
+    difference — see ops/df32)."""
     from perphil_tpu.ops.krylov import cg_df, gmres_df
 
     rng = np.random.default_rng(7)

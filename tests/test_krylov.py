@@ -71,7 +71,7 @@ def test_cg_grid_shaped():
 
 
 def test_cgs2_preserves_iteration_counts():
-    """CGS2 (the TPU default) spans the same Krylov space: identical
+    """CGS2 (opt-in reorthogonalization) spans the same Krylov space: identical
     iteration counts in clean (CPU f64) arithmetic."""
     A = _random_spd(60, seed=7)
     b = np.random.default_rng(8).standard_normal(60)
@@ -85,8 +85,8 @@ def test_cgs2_preserves_iteration_counts():
 
 def test_gmres_terminates_on_nan():
     """A non-finite residual must terminate the solve (PETSc's
-    KSP_DIVERGED_NANORINF), not spin the outer restart loop forever —
-    an unbounded on-device loop faults shared TPU devices."""
+    KSP_DIVERGED_NANORINF), not spin the outer restart loop forever on
+    the device."""
     from perphil_tpu.ops.df32 import df_from_f64
     from perphil_tpu.ops.krylov import gmres_df
 

@@ -1,8 +1,6 @@
 """Level-scheduled parity-ILU on the XLA engine: the committed evaluation
 (experiments/levelsched_eval.py) showed counts are engine-independent —
-exact 6/8 at nx=4/8 through fori_loop trisolves — while wall-clock loses
-~17x to the host CSR kernels (the documented reason the production
-ordering-parity rows stay host-cpu; docs/design.md section 6.2)."""
+exact 6/8 at nx=4/8 through fori_loop trisolves."""
 
 import pytest
 

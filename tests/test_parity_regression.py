@@ -55,7 +55,7 @@ def test_direct_solve_errors_match_reference(N):
 
 # reference: convergence.csv / petsc_perf_breakdown.csv iteration counts.
 # Counts at the convergence boundary can shift by +-1 with the platform's
-# floating-point reduction order (292 on TPU/plain CPU, 293 under the
+# floating-point reduction order (292 on plain CPU, 293 under the
 # 8-virtual-device CPU test config).
 @pytest.mark.parametrize("N,expected", [(4, 10), (16, 292)])
 def test_plain_gmres_iterations_match_reference(N, expected):
@@ -97,9 +97,9 @@ def test_gmres_ilu_n64_exact_in_f64_parity_mode(monkeypatch):
 
 
 def _force_df_mode(monkeypatch):
-    """Route solves through the df/TPU-production builder on CPU (the
+    """Route solves through the opt-in df32 builder on CPU (the
     native-f64 parity builder would otherwise serve them and prove nothing
-    about the production path)."""
+    about the df32 path)."""
     monkeypatch.setenv("PERPHIL_TPU_KSP_DTYPE", "df32")
     from perphil_tpu.solvers import solver as S
 
@@ -109,9 +109,9 @@ def _force_df_mode(monkeypatch):
 
 @pytest.mark.parametrize("N,expected", [(4, 10), (8, 40)])
 def test_plain_gmres_knife_edge_exact_ef64(monkeypatch, N, expected):
-    """Tiny unpreconditioned systems (<=512 DoF) on the df/production
-    builder route to the knife-edge ef64 mode (f64-FAITHFUL arithmetic;
-    here its XLA twin ``gmres_ef64``) — the 2D N=8 cell must land PETSc's
+    """Tiny unpreconditioned systems (<=512 DoF) on the df32
+    builder route to the knife-edge ef64 mode (f64-FAITHFUL arithmetic,
+    ``gmres_ef64``) — the 2D N=8 cell must land PETSc's
     exact 40 (petsc_perf_breakdown.csv row N=8; measured: df32 drifts to
     42 on this path and tf32 UNDERSHOOTS to 38 — docs/design.md §7)."""
     _force_df_mode(monkeypatch)
@@ -122,7 +122,7 @@ def test_plain_gmres_knife_edge_exact_ef64(monkeypatch, N, expected):
 
 @pytest.mark.slow
 def test_plain_gmres_3d_knife_edge_exact_ef64(monkeypatch):
-    """3D nx=4 plain GMRES on the df/production builder: 27 exactly via
+    """3D nx=4 plain GMRES on the df32 builder: 27 exactly via
     the ef64 knife-edge mode (petsc_perf_breakdown_3d.csv; df32 drifts to
     28 — docs/design.md §7)."""
     from perphil_tpu.mesh import create_cube_mesh
@@ -153,7 +153,7 @@ def test_picard_ngs_iterations_exact(N, ref_its):
 
 @pytest.mark.slow
 def test_gmres_ilu_n64_exact_in_df32_production_mode(monkeypatch):
-    """The PRODUCTION df32 Krylov path now applies the monolithic ILU in
+    """The opt-in df32 Krylov path applies the monolithic ILU in
     double-float (defect-corrected f32 trisolves against the df-stored f64
     factor, ops/ilu.py::StructuredILU0.apply_flat_df) — the knife-edge 2D
     N=64 cell must land PETSc's exact 42 in this mode (convergence.csv row

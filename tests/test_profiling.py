@@ -43,7 +43,7 @@ _EXPECTED_STABLE = {
     "dofs": 50,
     "num_cells": 16,
     # provenance column (VERDICT r3 weak #7); tests pin the CPU backend
-    "measurement_class": "cpu-x64",
+    "measurement_class": "cpu",
 }
 
 
